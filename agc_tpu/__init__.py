@@ -1,8 +1,8 @@
-"""agc-tpu: a TPU-native assembled-genomes collection compressor.
+"""agc-tpu: a JAX-accelerated assembled-genomes collection compressor.
 
 A from-scratch reimplementation of the capabilities of refresh-bio/agc
-(reference: /root/reference, v3.2.2, archive format 3.0), redesigned for
-TPU hardware: the hot compute stages (k-mer scanning, splitter discovery,
+(reference: v3.2.2, archive format 3.0), redesigned for an
+accelerator: the hot compute stages (k-mer scanning, splitter discovery,
 segment matching/estimation) run as batched JAX/XLA kernels; the archive
 container, metadata and IO layers are host-side.
 

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import zstandard
-
 from .codecs import (
     dec_prefix_varint,
     enc_prefix_varint,

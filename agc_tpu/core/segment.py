@@ -16,15 +16,12 @@ Bit-compatible with the reference's CSegment on-archive layout
 from __future__ import annotations
 
 import numpy as np
-import zstandard
 
+from ..native import zstd
 from .codecs import ss_delta_ext, ss_ref_ext
 from .lz import LZDiff, decode_v1, decode_v2
 
 CONTIG_SEPARATOR = 0xFF
-
-
-_zstd_d_tls = __import__("threading").local()
 
 
 def zstd_decompress_tolerant(data: bytes) -> bytes:
@@ -38,10 +35,7 @@ def zstd_decompress_tolerant(data: bytes) -> bytes:
         from .entropy import decompress as _rans_d
 
         return _rans_d(data)
-    d = getattr(_zstd_d_tls, "d", None)
-    if d is None:
-        d = _zstd_d_tls.d = zstandard.ZstdDecompressor()
-    return d.decompressobj().decompress(bytes(data))
+    return zstd.decompress(data)
 
 
 def part_compress(data: bytes, level: int, profile: str = "zstd") -> bytes:
@@ -52,7 +46,7 @@ def part_compress(data: bytes, level: int, profile: str = "zstd") -> bytes:
         from .entropy import compress as _rans_c
 
         return _rans_c(data)
-    return _zstd_level(level).compress(data)
+    return zstd.compress(data, level)
 
 
 # ---------------------------------------------------------------------------
@@ -232,22 +226,6 @@ class SegmentReader:
 # ---------------------------------------------------------------------------
 # encode-side segment store
 # ---------------------------------------------------------------------------
-
-
-_zstd_tls = __import__("threading").local()
-
-
-def _zstd_level(level: int):
-    """Per-thread compressor cache: context setup costs real time at the
-    levels the format mandates (13/17/19), and members are compressed one
-    60 kb block at a time."""
-    cache = getattr(_zstd_tls, "c", None)
-    if cache is None:
-        cache = _zstd_tls.c = {}
-    c = cache.get(level)
-    if c is None:
-        c = cache[level] = zstandard.ZstdCompressor(level=level)
-    return c
 
 
 def ref_payload(data: bytes) -> tuple[bytes, int, int]:

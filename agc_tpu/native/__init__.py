@@ -46,7 +46,8 @@ def _build() -> bool:
 
 
 def _build_capi() -> bool:
-    return _compile([_SRC, _SRC_CAPI], _LIB_CAPI, ["-lzstd"])
+    # the library by its runtime name: no libzstd.so dev link is needed
+    return _compile([_SRC, _SRC_CAPI], _LIB_CAPI, ["-l:libzstd.so.1"])
 
 
 def get_capi_path() -> str | None:

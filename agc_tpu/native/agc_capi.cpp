@@ -29,7 +29,14 @@
 #include <unordered_map>
 #include <vector>
 
-#include <zstd.h>
+// libzstd's stable C API, declared here so the build needs only the
+// shared library (libzstd.so.1), not its development headers
+extern "C" {
+size_t ZSTD_findFrameCompressedSize(const void* src, size_t src_size);
+unsigned ZSTD_isError(size_t code);
+size_t ZSTD_decompress(void* dst, size_t dst_capacity, const void* src,
+                       size_t compressed_size);
+}
 
 // from lz_native.cpp
 extern "C" {

@@ -1053,9 +1053,9 @@ int64_t fasta_preprocess2(const uint8_t* raw, uint64_t n,
 // Anchor-mode LZ encode (the device-assisted encode path).
 //
 // The classic encoder above probes an insertion-ordered linear-probe hash
-// table at every position — a walk a TPU cannot replicate exactly. Anchor
+// table at every position — a serial walk a batched kernel cannot replicate. Anchor
 // mode redefines the ENCODE DECISION RULE (not the V2 token grammar) to be
-// a pure function of (text, ref) built from operations both a TPU kernel
+// a pure function of (text, ref) built from operations both a device kernel
 // (ops/match.py::anchor_tables) and this C++ twin compute identically:
 //
 //   1. ref index = dual min/max hash-slot tables over seed keys at EVERY
@@ -1417,7 +1417,7 @@ int64_t ref_payload_tuples(const uint8_t* data, uint64_t n, uint8_t* out,
 }  // extern "C"
 
 // ===========================================================================
-// Lane-interleaved order-0 rANS (TPU-native archive profile entropy stage).
+// Lane-interleaved order-0 rANS (the tpu-rans profile's entropy stage).
 //
 // BITSTREAM SPEC: agc_tpu/core/entropy.py (the host/device reference
 // implementation). This scalar path exploits that lanes are fully

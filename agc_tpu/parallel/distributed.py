@@ -2,7 +2,7 @@
 deterministic archive merge.
 
 The reference is strictly single-host (SURVEY.md section 2.6); this module
-adds the scale-out layer for multi-host TPU pods:
+adds the scale-out layer for several devices or hosts:
 
 - The splitter set is determined once from the reference genome and
   replicated to every shard (host) -- it is small (~1 per segment_size
@@ -20,14 +20,16 @@ adds the scale-out layer for multi-host TPU pods:
 - Collection metadata is rebuilt globally in the user-specified sample
   order, so extraction output is independent of the shard count.
 
-On a real pod each shard is one jax process (jax.distributed); here the
-shards can also run as local threads, which exercises the identical
-partition/merge logic (tests/test_distributed.py).
+Shards run as local threads (sharing this process's device), as worker
+processes with one GPU each, or as jax.distributed processes
+(parallel/jaxdist.py); all exercise the identical partition/merge logic
+(tests/test_distributed.py).
 """
 
 from __future__ import annotations
 
 import os
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -74,6 +76,8 @@ class _ShardResult:
     # sample -> ordered full contig names (so the merge never re-parses
     # the input FASTA on the writer host just to recover names)
     contig_names: dict = field(default_factory=dict)
+    # (platform, device count) of the process that compressed the shard
+    device: tuple = ()
 
 
 class _CapturingCompressor(Compressor):
@@ -310,7 +314,11 @@ class _CapturingCompressor(Compressor):
         self._ccontig_file[cid] = fname
 
     def result(self) -> _ShardResult:
+        import jax
+
         res = _ShardResult(self.shard_id, [s.name for s in self.collection.samples])
+        local = jax.local_devices()
+        res.device = (local[0].platform, len(local))
         res.segments = self.captured_segments
         res.fallback_by_sample = self.fallback_by_sample
         res.splitter_set = self._splitter_set
@@ -327,27 +335,80 @@ class _CapturingCompressor(Compressor):
         return res
 
 
+def visible_gpus() -> list[str]:
+    """Ids of the GPUs this process may hand to workers, read without
+    starting a JAX runtime (which would reserve memory on every card):
+    CUDA_VISIBLE_DEVICES when set, else ``nvidia-smi -L``."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [v.strip() for v in vis.split(",") if v.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [
+        str(i)
+        for i, line in enumerate(ln for ln in out.splitlines()
+                                 if ln.startswith("GPU "))
+    ]
+
+
+def worker_envs(n_workers: int) -> list[dict]:
+    """Environment overrides for each of ``n_workers`` JAX worker
+    processes.
+
+    Each worker gets a GPU of its own (CUDA_VISIBLE_DEVICES), because a
+    JAX process reserves most of a card's memory when it starts. Workers
+    allocate on demand (XLA_PYTHON_CLIENT_PREALLOCATE=false): the
+    coordinating parent may already hold its own reservation on their
+    cards. More GPU workers than visible cards, none visible included,
+    is refused. Workers run on the CPU only when
+    AGC_TPU_WORKER_PLATFORM=cpu says so."""
+    plat = os.environ.get("AGC_TPU_WORKER_PLATFORM", "").strip().lower()
+    if plat == "cpu":
+        return [
+            {"JAX_PLATFORMS": "cpu",
+             "JAX_CPU_COLLECTIVES_IMPLEMENTATION": "gloo"}
+            for _ in range(n_workers)
+        ]
+    if plat not in ("", "gpu"):
+        raise ValueError(
+            f"AGC_TPU_WORKER_PLATFORM={plat!r}: expected 'gpu' or 'cpu'"
+        )
+    gpus = visible_gpus()
+    if n_workers > len(gpus):
+        raise ValueError(
+            f"{n_workers} GPU workers requested but {len(gpus)} GPU(s) "
+            "visible: each worker process needs a card of its own. Use "
+            "at most one worker per card, thread shards, or "
+            "AGC_TPU_WORKER_PLATFORM=cpu"
+        )
+    return [
+        {"CUDA_VISIBLE_DEVICES": gpus[i], "JAX_PLATFORMS": "cuda",
+         "XLA_PYTHON_CLIENT_PREALLOCATE": "false"}
+        for i in range(n_workers)
+    ]
+
+
 def _run_shard_task(args):
     """One shard's compression (module-level: runs in worker PROCESSES).
 
-    On a real pod this is what each host executes against its own chips;
-    the splitter set is the replicated state, the returned _ShardResult is
-    what travels to the writer host (it is plain picklable data).
+    On a multi-device host this is what each worker executes against its
+    own card; the splitter set is the replicated state, the returned
+    _ShardResult is what travels to the writer (it is plain picklable
+    data). ``env`` (process workers only) binds the worker to its
+    platform and card; it is applied before the worker first touches a
+    device.
     """
     (params, splitter_set, shard_id, shard_files, fallback_records,
-     cand_singletons, cand_duplicated, inventory) = args
-    # spawned workers must pick their platform BEFORE first device use;
-    # a registered TPU plugin outranks the JAX_PLATFORMS env var, so the
-    # choice is applied through the config (single-chip hosts set
-    # JAX_PLATFORMS=cpu for workers; pod hosts leave it unset and each
-    # process binds its own chips)
-    plat = os.environ.get("AGC_TPU_WORKER_PLATFORM") or os.environ.get(
-        "JAX_PLATFORMS"
-    )
-    if plat:
+     cand_singletons, cand_duplicated, inventory, env) = args
+    if env:
         import jax
 
-        jax.config.update("jax_platforms", plat.split(",")[0])
+        os.environ.update(env)
+        jax.config.update("jax_platforms", env["JAX_PLATFORMS"])
     comp = _CapturingCompressor(
         params, splitter_set, shard_id, fallback_records,
         cand_singletons=cand_singletons, cand_duplicated=cand_duplicated,
@@ -369,9 +430,15 @@ def create_archive_sharded(
     Extraction output is byte-identical regardless of ``n_shards``.
     ``worker="process"`` runs each shard in its own OS process (the
     multi-host execution shape: independent runtimes, results shipped to
-    the writer by value); ``"thread"`` shares this process's device.
+    the writer by value), one GPU per worker (:func:`worker_envs`);
+    ``"thread"`` shares this process's device.
     """
     params = params or CompressorParams()
+    envs = (
+        worker_envs(n_shards)
+        if n_shards > 1 and worker == "process"
+        else [None] * n_shards
+    )
     if params.concatenated_genomes and (
         params.adaptive_compression or params.fallback_frac > 0
     ):
@@ -466,7 +533,7 @@ def create_archive_sharded(
         shards[i % n_shards].append(sf)
     tasks = [
         (params, splitter_set, sid, shards[sid], fallback_records,
-         cand_singletons, cand_duplicated, inventory)
+         cand_singletons, cand_duplicated, inventory, envs[sid])
         for sid in range(n_shards)
     ]
 
@@ -474,11 +541,12 @@ def create_archive_sharded(
     if n_shards > 1 and worker == "process":
         import multiprocessing as mp
 
-        # spawn (not fork): each worker initializes its own JAX runtime,
-        # exactly like a pod host process would
+        # spawn (not fork): each worker initializes its own JAX runtime.
+        # One task per worker process, so every worker binds the card of
+        # the task it runs.
         ctx = mp.get_context("spawn")
-        with ctx.Pool(processes=n_shards) as pool:
-            results = pool.map(_run_shard_task, tasks)
+        with ctx.Pool(processes=n_shards, maxtasksperchild=1) as pool:
+            results = pool.map(_run_shard_task, tasks, chunksize=1)
     elif n_shards > 1:
         with ThreadPoolExecutor(max_workers=n_shards) as pool:
             results = list(pool.map(_run_shard_task, tasks))
@@ -506,6 +574,7 @@ def create_archive_sharded(
         out = {
             "n_shards": n_shards,
             "worker": worker,
+            "worker_devices": [list(r.device) for r in results],
             "boot_s": round(timings["t_shards"] - timings["t_boot"], 2),
             "shards_s": round(timings["t_merge"] - timings["t_shards"], 2),
             "merge_s": round(timings["t_end"] - timings["t_merge"], 2),

@@ -1,8 +1,8 @@
 """Multi-device compression step: data-parallel contig scanning with
 collective splitter synchronization.
 
-The reference is single-host multithreaded (SURVEY.md section 2.6); the
-TPU build replaces the worker pool + in-band token protocol
+The reference is single-host multithreaded (SURVEY.md section 2.6); this
+build replaces the worker pool + in-band token protocol
 (reference: agc_compressor.cpp:1093-1272) with an SPMD schedule over a
 ``jax.sharding.Mesh``:
 
@@ -132,7 +132,7 @@ def mesh_create_archive(
     ``__graft_entry__.dryrun_multichip`` and tests/test_distributed.py).
 
     The reference has no distributed layer (SURVEY.md §2.6); this is the
-    intra-host half of the TPU replacement for its worker pool
+    intra-host half of the replacement for its worker pool
     (agc_compressor.cpp:1093-1272): scans fan out over chips, the
     matcher consumes positions, the writer owns the archive.
     """

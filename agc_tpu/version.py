@@ -12,6 +12,8 @@ PRODUCER_VERSION = (0, 1, 0)
 PRODUCER_VERSION_STR = ".".join(map(str, PRODUCER_VERSION))
 PRODUCER_BUILD = "20260816.1"
 
+# Recorded in every archive's file_type_info: archive format, kept as
+# first written so that archives stay byte-identical across releases.
 COMMENT = (
     f"AGC-TPU (TPU-native Assembled Genomes Compressor) v. {PRODUCER_VERSION_STR}"
     f" [build {PRODUCER_BUILD}]"

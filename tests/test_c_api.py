@@ -101,13 +101,11 @@ def test_c_api_ranges_and_resolution(archive):
         lib.agc_close(h)
 
 
-def test_c_api_reads_reference_archive():
+def test_c_api_reads_reference_archive(toy_dir):
     """Cross-validation: the native library opens an archive produced by
     the reference AGC binary (toy_ex/toy_ex.agc fixture) and extracts
     byte-identical sequences."""
-    toy = "/root/reference/toy_ex/toy_ex.agc"
-    if not os.path.exists(toy):
-        pytest.skip("reference fixture unavailable")
+    toy = os.path.join(toy_dir, "toy_ex.agc")
     lib = get_capi()
     assert lib is not None
     h = lib.agc_open(toy.encode(), 1)
@@ -158,9 +156,10 @@ def test_c_header_compiles(tmp_path):
     assert res.returncode == 0, res.stderr.decode()
 
 
-def test_cpp_example_compiles_and_runs(tmp_path):
+def test_cpp_example_compiles_and_runs(tmp_path, toy_archive_path):
     """The committed C++ example client (examples/example_agc_lib_cpp.cpp)
-    builds against the native library and runs on a real archive."""
+    builds against the native library and runs on an archive this tool
+    created."""
     import subprocess
 
     from agc_tpu.native import get_capi_path
@@ -180,7 +179,7 @@ def test_cpp_example_compiles_and_runs(tmp_path):
     )
     assert res.returncode == 0, res.stderr.decode()
     out = subprocess.run(
-        [str(exe), "/root/reference/toy_ex/toy_ex.agc"],
+        [str(exe), toy_archive_path],
         capture_output=True,
     )
     assert out.returncode == 0, out.stderr.decode()

@@ -80,9 +80,8 @@ def test_contig_without_sample(toy_archive):
     assert toy_archive.get_contig_seq("", "chr1") is None
 
 
-def test_api_facade(toy_dir):
-    path = os.path.join(toy_dir, "toy_ex.agc")
-    with AGCFile(path) as f:
+def test_api_facade(toy_archive_path):
+    with AGCFile(toy_archive_path) as f:
         assert f.IsOpened()
         assert f.NSample() == 4
         assert f.NCtg("ref") == 4

@@ -8,7 +8,6 @@ lz_diff.cpp:443-474) and verify our readers decode them.
 
 import numpy as np
 import pytest
-import zstandard
 
 from agc_tpu.core.archive import ArchiveWriter
 from agc_tpu.core.codecs import (
@@ -17,6 +16,7 @@ from agc_tpu.core.codecs import (
     zigzag_encode_pred,
 )
 from agc_tpu.core.decompressor import Decompressor
+from agc_tpu.native import zstd
 
 
 def _append_str(buf: bytearray, s: str) -> None:
@@ -48,7 +48,7 @@ def _params(w: ArchiveWriter, k, mml, pack, seg_size=None) -> None:
 
 
 def _zstd(data: bytes, level=19) -> bytes:
-    return zstandard.ZstdCompressor(level=level).compress(data)
+    return zstd.compress(data, level)
 
 
 # numeric sequences (A=0 C=1 G=2 T=3)

@@ -31,11 +31,10 @@ def _extract_and_compare(archive, files, tmp_path, line=70):
     d.close()
 
 
-def test_toy_create_roundtrip(toy_dir, tmp_path):
-    files = [(s, os.path.join(toy_dir, f"{s}.fa")) for s in ("ref", "a", "b", "c")]
+def test_toy_create_roundtrip(toy_collection, tmp_path):
     archive = str(tmp_path / "toy.agc")
-    create_archive(archive, [p for _, p in files], CompressorParams())
-    _extract_and_compare(archive, files, tmp_path, line=80)
+    create_archive(archive, [p for _, p in toy_collection], CompressorParams())
+    _extract_and_compare(archive, toy_collection, tmp_path, line=80)
 
 
 def test_synthetic_lz_roundtrip(tmp_path):
@@ -224,11 +223,12 @@ def test_lowercase_soft_mask_uppercased(tmp_path):
     assert got == mixed.upper()
 
 
-def test_cli_smoke(toy_dir, tmp_path, capsys):
+def test_cli_smoke(toy_collection, tmp_path, capsys):
     from agc_tpu.cli.main import main
 
     archive = str(tmp_path / "toy.agc")
-    files = [os.path.join(toy_dir, f"{s}.fa") for s in ("ref", "a", "b", "c")]
+    files = [p for _, p in toy_collection]
+    ref_fa = dict(toy_collection)["ref"]
     assert main(["create", "-o", archive] + files) == 0
     assert main(["listset", archive, "-o", str(tmp_path / "samples.txt")]) == 0
     with open(tmp_path / "samples.txt") as f:
@@ -240,7 +240,7 @@ def test_cli_smoke(toy_dir, tmp_path, capsys):
         main(["getset", archive, "ref", "-o", str(tmp_path / "ref_out.fa")]) == 0
     )
     assert filecmp.cmp(
-        str(tmp_path / "ref_out.fa"), os.path.join(toy_dir, "ref.fa"), shallow=False
+        str(tmp_path / "ref_out.fa"), ref_fa, shallow=False
     )
     assert (
         main(
